@@ -15,15 +15,15 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache_cpu"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ssvio_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache(min_compile_secs=2.0)
 
 import sys
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from scripts.repro_loop5 import small_settings
 from ssvio_tpu.dataio import synthetic

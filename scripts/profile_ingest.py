@@ -2,7 +2,7 @@
 
 Breaks the per-chunk ingest cost into: descriptor ladder (describe), BoW
 transform, database scoring, and the full fused _ingest_v dispatch, at
-bench scale (512 features, 8 octaves, KITTI resolution). Run on the TPU
+bench scale (512 features, 8 octaves, KITTI resolution). Run on the GPU
 (default backend) to attribute the loop-on headline cost.
 
 Usage: python scripts/profile_ingest.py [batch_B]
@@ -15,9 +15,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from ssvio_tpu.utils.cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

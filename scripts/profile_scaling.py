@@ -1,12 +1,11 @@
 """Scaling-efficiency report for distributed local BA (BASELINE config 5).
 
 Runs the landmark-sharded BA step on 1/2/4/8-device meshes and reports the
-wall-clock per LM solve plus scaling efficiency vs the 1-device run. On
-this machine the mesh is 8 virtual CPU devices (no multi-chip hardware is
-reachable); the communication pattern (psum of the O(W^2) pose system per
-iteration) is identical to what rides ICI on a real slice, so this
-validates the sharding and measures the compute/communication split, not
-real ICI bandwidth.
+wall-clock per LM solve plus scaling efficiency vs the 1-device run, on 8
+virtual CPU devices. The communication pattern (psum of the O(W^2) pose
+system per iteration) is the one a multi-GPU mesh runs, so this validates
+the sharding and the compute/communication split on the host; it measures
+no GPU or interconnect, and its times are host-CPU times.
 
 Usage: python scripts/profile_scaling.py [M_landmarks]
        python scripts/profile_scaling.py --engine [M_landmarks]
@@ -95,7 +94,6 @@ def engine_mode():
     s.max_window = 12
     s.tracking_good = 10 ** 9        # force the keyframe + BA branch
     s.tracking_bad = -1
-    s.lk_backend = "xla"             # CPU mesh
     s.detect_octaves = 2
     front = fe.Frontend(s, s.image_width, s.image_height)
 
@@ -161,11 +159,10 @@ def main():
     results = {}
     report = {"M": M, "reps": "median of 5", "solve_ms": {},
               "efficiency": {},
-              "note": ("8 VIRTUAL CPU devices on a 2-core host (no "
-                       "multi-chip hardware on this machine): validates "
-                       "the sharded program and the compute/comm split; "
-                       ">=4-device efficiency is capped by the 2 physical "
-                       "cores, and none of it measures real ICI bandwidth")}
+              "note": ("8 VIRTUAL CPU devices: validates the sharded "
+                       "program and the compute/comm split; efficiency is "
+                       "capped by the host's physical cores, and none of "
+                       "it measures a GPU or its interconnect")}
     for n in (1, 2, 4, 8):
         mesh = dist_ba.make_mesh(devices[:n])
         step = dist_ba.distributed_local_ba(mesh, fx, fy, cx, cy, baseline,

@@ -18,7 +18,8 @@ from ssvio_tpu.dataio import synthetic
 from ssvio_tpu.system import System
 
 CHUNK = 8
-LOGDIR = "/tmp/jax_trace"
+LOGDIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".cache", "jax_trace")
 
 
 def main():
@@ -52,7 +53,7 @@ def main():
     for tool in ("op_profile", "hlo_stats", "framework_op_stats"):
         try:
             data = rtd.xspace_to_tool_data([files[-1]], tool, {})
-            out = f"/tmp/{tool}.json"
+            out = os.path.join(LOGDIR, f"{tool}.json")
             blob = data[0] if isinstance(data, tuple) else data
             if isinstance(blob, bytes):
                 blob = blob.decode("utf-8", "replace")

@@ -1,10 +1,10 @@
-"""CPU repro of the BENCH_r04 loop-closing regression (VERDICT r5 task 1).
+"""CPU repro of a loop-closing regression at multi-closure scale.
 
-BENCH_r04's loop_bench (5-lap circular revisit, pipelined dispatch-ahead)
-measured loop_on ATE 86.57 m vs loop_off 0.33 m — loop closing corrupting
-the trajectory at multi-closure scale. This reproduces the same scenario
+The 5-lap circular revisit bench (pipelined dispatch-ahead) once measured
+loop_on ATE 86.57 m vs loop_off 0.33 m — loop closing corrupting the
+trajectory at multi-closure scale. This reproduces the same scenario
 at test scale (320x128, 5 laps) on the virtual CPU mesh so the mechanism
-can be bisected without paying TPU compile latency.
+can be bisected on a host CPU.
 
 Usage: python scripts/repro_loop5.py [--laps 5] [--chunk 10] [--per-frame]
 """
@@ -22,15 +22,15 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_comp_cache_cpu"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ssvio_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache(min_compile_secs=2.0)
 
 import dataclasses  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ssvio_tpu.config import Settings  # noqa: E402
 from ssvio_tpu.dataio import synthetic  # noqa: E402

@@ -66,8 +66,8 @@ def parse_args(argv=None):
                         "SSVIO_NUM_PROCESSES/SSVIO_PROCESS_ID env or "
                         "cluster auto-detection); the engine then runs "
                         "with the map's landmark axis sharded over the "
-                        "GLOBAL device mesh — ICI within a host, DCN "
-                        "across hosts (parallel/multihost.py)")
+                        "GLOBAL device mesh, within and across hosts "
+                        "(parallel/multihost.py)")
     return p.parse_args(argv)
 
 
@@ -122,12 +122,17 @@ def _run_chunked(system, loader, ts, n, chunk, viewer, gt, t0):
     system.finish()    # resolve loop candidates deferred in the last chunks
 
 
-def main(argv=None) -> int:
+def main(argv=None, settings=None) -> int:
+    """`settings`: a Settings object to run with instead of
+    --config_yaml_path (callers that build one in code need no PyYAML)."""
     args = parse_args(argv)
 
     from ssvio_tpu.config import Settings
     from ssvio_tpu.dataio import kitti
     from ssvio_tpu.system import System
+    from ssvio_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     mesh = None
     if args.distributed:
@@ -144,8 +149,9 @@ def main(argv=None) -> int:
               f"{len(jax.devices())} global devices, mesh axes "
               f"{mesh.shape}")
 
-    settings = (Settings.from_yaml(args.config_yaml_path)
-                if args.config_yaml_path else Settings())
+    if settings is None:
+        settings = (Settings.from_yaml(args.config_yaml_path)
+                    if args.config_yaml_path else Settings())
     system = System(settings,
                     enable_backend=False if args.no_backend else None,
                     enable_loop_closing=False if args.no_loop else None,

@@ -42,6 +42,9 @@ def main(argv=None) -> int:
     import cv2
     from ssvio_tpu.config import Settings
     from ssvio_tpu.system import System
+    from ssvio_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.sbs is not None:
         caps = [cv2.VideoCapture(args.sbs)]

@@ -66,6 +66,9 @@ def main(argv=None) -> int:
 
     from ssvio_tpu import viz
     from ssvio_tpu.dataio import tum
+    from ssvio_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     sys_ = _FakeSystem()
     viewer = viz.LiveViewer(update_every=10) if args.live else None

@@ -1,4 +1,4 @@
-"""ssvio_tpu — a TPU-native stereo visual SLAM engine.
+"""ssvio_tpu — a stereo visual SLAM engine written in JAX.
 
 Brand-new JAX/XLA/Pallas implementation with the capabilities of the
 reference system weihaoysgs/ssvio (stereo ORB + pyramidal-LK tracking,
@@ -7,10 +7,12 @@ BoW loop detection, pose-graph optimization) — re-designed SLAM-as-tensors:
 
 - All per-frame state is fixed-shape, masked arrays so the hot path jits once.
 - The front end (pyramids, FAST, BRIEF, LK) is data-parallel over pixels /
-  keypoints and runs on the VPU; the optimizers (pose-only LM, Schur-reduced
-  local BA, PGO) are batched Gauss-Newton/LM whose contractions hit the MXU.
+  keypoints; the optimizers (pose-only LM, Schur-reduced local BA, PGO) are
+  batched Gauss-Newton/LM over dense masked tensors. On a GPU, LK runs as a
+  Pallas kernel (ops/lk_triton.py); everything else is plain XLA.
 - Scale-out shards landmark blocks over a `jax.sharding.Mesh` and combines
-  Hessian contributions with `psum`/`reduce_scatter` over ICI collectives.
+  Hessian contributions with `psum` collectives (NCCL over NVLink between
+  the GPUs of a host).
 
 Conventions (used everywhere, documented once):
 - Pose `T_cw`: maps world points into the camera frame; stored as a [3,4]
@@ -28,10 +30,11 @@ __version__ = "0.1.0"
 import jax as _jax
 
 # Geometry/optimizer matmuls are tiny (3x3..96x96) but accuracy-critical:
-# TPU f32 matmuls default to bf16 passes, which injects ~1e-3 relative error
-# into pose chains and normal equations. Force true f32 everywhere; the hot
-# front-end kernels are elementwise/gather so this costs nothing there, and
-# any future bandwidth-bound matmul can opt down locally.
+# on a GPU, float32 matmuls may run in TF32 (about three decimal digits),
+# which injects ~1e-3 relative error into pose chains and normal equations.
+# Force true f32 everywhere; the hot front-end kernels are
+# elementwise/gather so this costs nothing there, and any future
+# bandwidth-bound matmul can opt down locally.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from ssvio_tpu.config import Settings  # noqa: F401

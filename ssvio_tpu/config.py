@@ -15,8 +15,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
-import yaml
-
 
 @dataclasses.dataclass
 class CameraConfig:
@@ -97,7 +95,7 @@ class Settings:
     # pairs, making descriptors compatible with ORB-SLAM's (and a loaded
     # ORBvoc meaningful).
     brief_pattern_path: Optional[str] = None
-    # TPU-native loop-closing capacity/vocabulary knobs (the reference uses
+    # Loop-closing capacity/vocabulary knobs (the reference uses
     # a pre-trained ORBvoc.txt + unbounded containers; we self-train and
     # pre-allocate — see ssvio_tpu/loopclosing.py)
     max_keyframes_db: int = 1024        # keyframe database capacity
@@ -165,7 +163,7 @@ class Settings:
     # --- output ---
     trajectory_save_path: Optional[str] = None
 
-    # --- TPU-native capacity planning (fixed shapes; no reference analog —
+    # --- capacity planning (fixed shapes; no reference analog —
     # the reference uses dynamic containers, we pre-allocate) ---
     max_features: int = 512             # feature slots per frame (padded)
     max_window: int = 16                # keyframe ring-buffer capacity (>= active_map_size)
@@ -174,21 +172,11 @@ class Settings:
     lk_levels: int = 3                  # LK pyramid levels (reference: 3)
     lk_iters: int = 30                  # LK iterations (reference: 30)
     lk_eps: float = 0.01                # LK convergence epsilon (reference: 0.01)
-    # VMEM LK kernel: 'serial' = per-keypoint roll/blend with individual
-    # early exit (fastest measured on v5e — see PERF.md); 'mm'/'mm_f32' =
-    # lockstep matmul-sampling groups (MXU-based, kept as an alternative;
-    # loses to serial on real texture because the group exits at the max of
-    # 8 keypoints' iteration counts)
-    lk_kernel: str = "serial"
-    # LK execution path: 'auto' = Pallas kernel on TPU / XLA elsewhere;
-    # 'xla' forces the vmapped XLA path (needed when the DEFAULT backend is
-    # a TPU but the engine runs on a CPU mesh, e.g. multichip dryruns)
-    lk_backend: str = "auto"
     grid_cell: int = 32                 # detection grid cell size (spread heuristic)
     # triangulation depth cap as a multiple of the baseline. The reference
     # accepts any positive depth (frontend.cpp:496-544); without its
     # always-on backend BA, distant triangulations carry z^2-scaled errors
-    # that bias translation, so the TPU engine gates them (ORB-SLAM-style
+    # that bias translation, so this engine gates them (ORB-SLAM-style
     # close-point rule, default 60x ~= 32 m on KITTI).
     max_depth_factor: float = 60.0
 
@@ -197,19 +185,17 @@ class Settings:
     def baseline(self) -> float:
         return self.baseline_fx / self.cam_left.fx
 
-    # padded image dims (multiples of 8x128 keep XLA layouts happy)
-    @property
-    def padded_width(self) -> int:
-        return _round_up(self.image_width, 128)
-
-    @property
-    def padded_height(self) -> int:
-        return _round_up(self.image_height, 8)
-
     # ------------------------------------------------------------------
     @classmethod
     def from_yaml(cls, path: str) -> "Settings":
-        """Load a reference-format YAML config (cv::FileStorage dialect)."""
+        """Load a reference-format YAML config (cv::FileStorage dialect).
+        Needs PyYAML, which nothing else in the package does."""
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(
+                "Settings.from_yaml needs PyYAML (pip install pyyaml); "
+                "build Settings() or Settings.from_dict() without it") from e
         with open(path, "r") as f:
             text = f.read()
         if text.startswith("%YAML"):
@@ -256,8 +242,9 @@ class Settings:
         s.vocab_path = g("DBOW2.VOC.Path", None)
         s.brief_pattern_path = g("TPU.BRIEF.Pattern.Path", None)
         s.trajectory_save_path = g("Trajectory.Save.Path", None)
-        # --- TPU-native extension keys (no reference analog: fixed-shape
-        # capacity planning + kernel knobs; absent keys keep defaults) ---
+        # --- extension keys (no reference analog: fixed-shape capacity
+        # planning and gates; the `TPU.` prefix is the config schema's
+        # historical name; absent keys keep defaults) ---
         s.max_features = int(g("TPU.Max.Features", s.max_features))
         s.max_landmarks = int(g("TPU.Max.Landmarks", s.max_landmarks))
         s.max_window = int(g("TPU.Max.Window", s.max_window))
@@ -278,6 +265,3 @@ class Settings:
                                     s.loop_screen_fast))
         return s
 
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m

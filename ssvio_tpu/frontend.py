@@ -12,7 +12,7 @@ keyframe creation on TRACKING_BAD with masked re-detection
 (TriangulateNewPoints, :496-544) and stereo map initialization
 (SteroInit/BuidInitMap, :430-494).
 
-TPU-first architecture: the per-frame hot path is ONE jitted function
+Architecture: the per-frame hot path is ONE jitted function
 (`track_step`) over fixed-shape feature arrays; keyframe creation is a
 second jitted function. The only host<->device traffic per frame is the
 image upload and a scalar (pose + inlier count) readback; the Python layer
@@ -99,9 +99,7 @@ class Frontend:
         self.rh = real_height or height
         self.n_feat = s.max_features
         self.lk_params = lk.LKParams(window=s.lk_window, levels=s.lk_levels,
-                                     iters=s.lk_iters, eps=s.lk_eps,
-                                     kernel=s.lk_kernel,
-                                     backend=getattr(s, "lk_backend", "auto"))
+                                     iters=s.lk_iters, eps=s.lk_eps)
         # stereo disparities (fx*b/z) are much larger than temporal flow;
         # one extra pyramid level widens the zero-seed basin accordingly
         self.lk_params_stereo = self.lk_params._replace(levels=s.lk_levels + 1)
@@ -227,7 +225,7 @@ class Frontend:
         single-scale behavior).
 
         `budget` caps the number of NEW detections accepted (detections are
-        response-ranked, so the budget keeps the strongest) — the TPU form
+        response-ranked, so the budget keeps the strongest) — the array form
         of the reference's two extractors (300-feature init / 100-feature
         steady, system.cpp:115-129): one detector, a per-call budget.
         Returns (FeatState, is_new [N] bool).

@@ -8,7 +8,7 @@ window eviction by the reference's distance heuristic
 < 0.2, else the farthest) and garbage collection of landmarks that lose all
 active observations (map.cpp:142-160).
 
-TPU-first redesign: instead of hash maps of ref-counted objects guarded by
+Array-form redesign: instead of hash maps of ref-counted objects guarded by
 mutexes, the active map is a set of fixed-capacity arrays —
 keyframe slots `[W]`, landmark slots `[M]`, and a dense observation table
 `[M, W, C]` (C = left/right eye) that IS the BA problem layout (ops/ba

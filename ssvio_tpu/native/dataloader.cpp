@@ -3,7 +3,7 @@
 // Capability parity with the reference's host I/O path — OpenCV imread on
 // the caller thread per frame (reference test/test_system.cpp:40-43,
 // include/common/read_kitii_dataset.hpp:16-60) — redesigned as a
-// TPU-feeding pipeline: N decode workers read + inflate PNGs ahead of the
+// device-feeding pipeline: N decode workers read + inflate PNGs ahead of the
 // consumer into a fixed ring of reusable buffers, so the per-frame device
 // step never waits on disk or zlib. Exposed as a plain C ABI for ctypes
 // (no pybind11 in this toolchain).

@@ -1,1 +1,1 @@
-"""TPU-native compute kernels: geometry, features, tracking, optimizers."""
+"""Compute kernels: geometry, features, tracking, optimizers."""

@@ -1,6 +1,6 @@
 """Batched Gauss-Newton / Levenberg-Marquardt optimizers.
 
-This module is the TPU-native replacement for the reference's g2o stack:
+This module is the tensor-form replacement for the reference's g2o stack:
 
 - `pose_only_optimize` == the frontend's EstimateCurrentPose
   (reference src/ssvio/frontend.cpp:184-300): 1 pose, N reprojection edges,
@@ -13,9 +13,9 @@ This module is the TPU-native replacement for the reference's g2o stack:
   (reference thirdparty g2o optimization_algorithm_levenberg.cpp:89-147),
   inlier-ratio outer loop, observation detachment.
 
-Design (TPU-first, not a port): no graph objects. Observations live in a
+Design (not a port): no graph objects. Observations live in a
 dense `[M, W, C]` table (C = 2 eyes), so residuals/Jacobians are one vmapped
-elementwise pass, Hessian blocks are einsum contractions that hit the MXU,
+elementwise pass, Hessian blocks are einsum contractions,
 and the Schur reduction is a single `[M]`-batched 3x3 solve + `[W x W]`
 block contraction. Fixed/free poses are handled with masks, invalid
 observations with zero weights — shapes never change, everything jits once.
@@ -249,10 +249,9 @@ def _ba_cost_and_blocks(prob: LocalBAProblem, kf_T_cw, lm_pos,
                         fx, fy, cx, cy, bl, edge_active, axis_name=None):
     """One linearization pass: cost F, Hessian blocks and gradients.
 
-    LAYOUT: every big intermediate keeps the landmark axis M LAST — TPU
-    tiles the two minor dims to (8, 128), so the naive [M,W,C,2,6] Jacobian
-    layout pads its (2, 6) tail out ~10x and turns the whole pass into
-    relayout traffic (measured 13 ms; M-last: ~1 ms). Jacobian components
+    LAYOUT: every big intermediate keeps the landmark axis M LAST, so the
+    large axis is the minor one and the small (2, 6) Jacobian tail never
+    becomes a padded minor tile. Jacobian components
     are built directly per (row k, column a) as [W, C, M] planes and
     stacked to [W, 6|3, C, 2, M]; all contractions then reduce adjacent
     minor axes (c, k, m) and lower to clean dot_generals.
@@ -263,7 +262,7 @@ def _ba_cost_and_blocks(prob: LocalBAProblem, kf_T_cw, lm_pos,
     With `axis_name` set, the landmark axis M is assumed sharded across that
     mesh axis (shard_map): per-landmark blocks (Hll, Hpl, blm) stay local to
     the shard, while the pose-side sums (F, Hpp, bp) are combined with a
-    `psum` over ICI — the distributed-BA reduction of SURVEY §2.3.
+    `psum` across the mesh — the distributed-BA reduction of SURVEY §2.3.
     """
     W = kf_T_cw.shape[0]
     R = se3.rotation(kf_T_cw)                                 # [W, 3, 3]
@@ -349,9 +348,9 @@ def _ba_cost_and_blocks(prob: LocalBAProblem, kf_T_cw, lm_pos,
 def _inv3x3(A: jnp.ndarray) -> jnp.ndarray:
     """Closed-form batched 3x3 inverse (adjugate / det).
 
-    jnp.linalg.inv lowers to batched LU on TPU — measured 10 ms for
-    [8192,3,3] vs ~0.1 ms for the cofactor form. BA damping keeps the
-    blocks well-conditioned, so the explicit formula is safe here."""
+    A cofactor formula is a handful of fused elementwise ops where
+    jnp.linalg.inv would run a batched LU. BA damping keeps the blocks
+    well-conditioned, so the explicit formula is safe here."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -428,8 +427,8 @@ def _schur_solve(Hpp, Hll, Hpl, bp, blm, lam, pose_free, lm_free,
     mask = free[:, None] * free[None, :]
     Sd = Sd * mask + jnp.diag(jnp.where(free > 0, 0.0, 1.0))
     rhs = bs.reshape(-1) * free
-    # LU solve: measured 8x faster than cho_factor/cho_solve on v5e for
-    # this 72x72 system (0.04 ms vs 0.27 ms)
+    # LU solve of the small (6W x 6W) damped system; the diagonal jitter
+    # keeps fixed-pose rows nonsingular
     dxp = jnp.linalg.solve(Sd + 1e-6 * jnp.eye(W * 6, dtype=Sd.dtype),
                            rhs).reshape(W, 6)
     dxp = dxp * pose_free[:, None]
@@ -461,8 +460,8 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
     lm_free = (prob.lm_valid & ~prob.lm_fixed & lm_has_obs).astype(jnp.float32)
 
     def lm_inner(kf_T_cw, lm_pos, edge_active, n_iters):
-        """Adaptive-lambda LM with TWO departures from the naive loop that
-        matter on TPU: (a) the linearization (the dominant cost) is CARRIED
+        """Adaptive-lambda LM with TWO departures from the naive loop:
+        (a) the linearization (the dominant cost) is CARRIED
         — one pass per iteration instead of blocks + a separate cost eval;
         (b) a while_loop exits as soon as the step stalls (g2o also stops
         early, optimization_algorithm_levenberg.cpp:89-147) instead of

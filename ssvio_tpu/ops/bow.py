@@ -1,4 +1,4 @@
-"""Bag-of-binary-words vocabulary — the TPU-native DBoW2 equivalent.
+"""Bag-of-binary-words vocabulary — the array-form DBoW2 equivalent.
 
 Capability parity with the reference's vendored DBoW2
 `TemplatedVocabulary<FORB>` (reference thirdparty/DBoW2/DBoW2/
@@ -10,7 +10,7 @@ ScoringObject.h:28), and the ORB-SLAM text vocabulary format loader
 (`loadFromTextFile`, :1338). Descriptor distance is 256-bit popcount
 Hamming (reference thirdparty/DBoW2/DBoW2/FORB.cpp:81-101).
 
-TPU-first redesign (not a port):
+Array-form redesign (not a port):
 - The tree lives in dense arrays: node descriptors `[n_nodes, 8] uint32`,
   a children table `[n_nodes, k] int32`, leaf word ids `[n_nodes] int32`.
   `transform` is a FIXED-DEPTH vectorized descent — L rounds of
@@ -18,8 +18,8 @@ TPU-first redesign (not a port):
   descriptor batch at once; variable-depth leaves are handled by letting
   finished descriptors idle at their leaf. No pointer chasing, one jit.
 - BowVectors are DENSE `[n_words] float32` (L1-normalized TF-IDF).
-  DBoW2's sparse word->weight maps exist to save CPU cache; on TPU a dense
-  vector makes database scoring ONE batched VPU pass (`score_l1_database`)
+  DBoW2's sparse word->weight maps exist to save CPU cache; a dense
+  vector makes database scoring ONE batched pass (`score_l1_database`)
   instead of a per-pair sparse merge.
 - Training is host-side numpy (offline path, mirrors DBoW2's `create`):
   k-means++ seeded k-majority clustering, recursing to depth L, IDF

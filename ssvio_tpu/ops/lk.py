@@ -6,23 +6,20 @@ Capability parity with the reference's cv::calcOpticalFlowPyrLK usage
 (OPTFLOW_USE_INITIAL_FLOW — the constant-velocity / projection prior is the
 start point at the finest level).
 
-TPU-first design — the key observation is that the KLT window moves as a
-RIGID TRANSLATION, so every sample in the window shares one fractional
-offset. Sampling the window therefore needs NO per-element gathers:
+The KLT window moves as a rigid translation, so every sample in the
+window shares one fractional offset. The XLA reference below therefore
+extracts, per level, one fixed-size patch per keypoint (a vmapped
+`lax.dynamic_slice`) and samples each iteration's 11x11 window as one
+dynamic slice of that patch plus a 4-corner bilinear blend with scalar
+weights. Convergence uses a freeze mask inside `lax.fori_loop`; shapes are
+static everywhere. The spatial-gradient matrix G comes from the template
+window and stays fixed across iterations (classic forward-additive KLT, as
+in OpenCV).
 
-  1. Per level, each keypoint extracts one fixed-size patch around its
-     integer position (template + gradients from the previous image, a
-     margin-padded search patch from the current image) — a vmapped
-     `lax.dynamic_slice`, the only "gather"-like op, once per level.
-  2. Every KLT iteration then samples its 11x11 window as ONE dynamic
-     slice of the small patch plus a 4-corner bilinear blend with scalar
-     weights — pure VPU math on [N, 11, 11] tensors.
-
-This removes the scattered image-wide gathers (which cost ~200 ms/frame on
-TPU) from the 30-iteration hot loop. Convergence uses a freeze mask inside
-`lax.fori_loop`; shapes are static everywhere. The spatial-gradient matrix
-G comes from the template window and stays fixed across iterations
-(classic forward-additive KLT, as in OpenCV).
+On a GPU each level runs instead as one Pallas kernel
+(`ops/lk_triton.py`) with a per-keypoint early exit; the XLA path stays
+its reference and runs on every other platform. The platform alone
+chooses.
 """
 
 from __future__ import annotations
@@ -32,7 +29,6 @@ from typing import List, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from jax import lax
 
@@ -47,32 +43,11 @@ class LKParams(NamedTuple):
     eps: float = 0.01
     min_eig: float = 1e-4     # per-pixel min eigenvalue threshold (OpenCV-like)
     margin: int = 8           # search slack around the seed per level (px)
-    # 'auto' = Pallas kernel on TPU, XLA elsewhere; 'xla' forces the
-    # vmapped-dynamic-slice path; 'pallas_interpret' runs the kernel in
-    # interpreter mode (CPU parity tests).
-    backend: str = "auto"
-    # VMEM-resident kernel flavor: 'serial' = per-keypoint roll/blend kernel
-    # with individual early exit (default; fastest measured), 'sw' = serial
-    # with the dynamic sublane roll replaced by a static-slice switch,
-    # 'ymm'/'pkmm' = serial structure but window sampling via two-hot
-    # interpolation matmuls (y only / both axes), 'mm' = lockstep
-    # matmul-sampling groups (bf16 matmuls, f32 accumulation), 'mm_f32' =
-    # same in full f32. 'mm' requires a Mosaic with mixed bf16->f32
-    # tpu.matmul support; this image's rejects it ("Bad lhs type"), so
-    # prefer 'mm_f32' on hardware.
-    kernel: str = "serial"
 
 
-def _pallas_mode(params: "LKParams"):
-    """None = XLA path, else the `interpret` flag for the Pallas kernel."""
-    if params.backend == "xla":
-        return None
-    if params.backend == "pallas_interpret":
-        return True
-    if params.backend == "pallas":
-        return False
-    import jax
-    return False if jax.default_backend() == "tpu" else None
+def _platform_impl() -> str:
+    """The level implementation for the default backend."""
+    return "kernel" if jax.default_backend() == "gpu" else "xla"
 
 
 def _extract_patches(img: jnp.ndarray, top_left: jnp.ndarray, size: int):
@@ -116,107 +91,17 @@ def _sample_window(patches: jnp.ndarray, local_tl: jnp.ndarray, win: int):
             + fy * fx * s[:, 1:win + 1, 1:win + 1])
 
 
-def _track_level_pallas(img_prev, img_cur, gx, gy, pts_prev, pts_guess,
-                        valid, params: LKParams, interpret: bool):
-    """Pallas-kernel level: VMEM-resident kernel when the level fits
-    (no per-keypoint DMA — see lk_pallas.lk_level_vmem), HBM-patch kernel
-    otherwise."""
-    from ssvio_tpu.ops import lk_pallas
+def _track_level_kernel(img_prev, img_cur, gx, gy, pts_prev, pts_guess,
+                        valid, params: LKParams, interpret: bool = False):
+    """`_track_level` through the GPU kernel (same outputs)."""
+    from ssvio_tpu.ops import lk_triton
 
-    win = params.window
-    r = win // 2
-    margin = params.margin
     h, w = img_cur.shape
-
-    hv = max(-(-h // 8) * 8, 32)
-    wv = max(-(-w // 128) * 128, lk_pallas.LANES)
-    if 4 * hv * wv * 4 <= lk_pallas.VMEM_PLANE_BUDGET:
-        if (hv, wv) != (h, w):
-            pad = ((0, hv - h), (0, wv - w))
-            img_prev_p = jnp.pad(img_prev, pad)
-            img_cur_p = jnp.pad(img_cur, pad)
-            gx_p = jnp.pad(gx, pad)
-            gy_p = jnp.pad(gy, pad)
-        else:
-            img_prev_p, img_cur_p, gx_p, gy_p = img_prev, img_cur, gx, gy
-        frozen0 = (~valid | ~sampling.in_bounds(pts_guess, h, w, border=r + 1)) \
-            .astype(jnp.int32)[:, None]
-        if params.kernel in ("mm", "mm_f32"):
-            from ssvio_tpu.ops import lk_pallas_variants
-            pts_out, flag = lk_pallas_variants.lk_level_vmem_mm(
-                img_prev_p, gx_p, gy_p, img_cur_p, pts_prev, pts_guess,
-                frozen0, win=win, iters=params.iters, eps=params.eps,
-                min_eig=params.min_eig, use_bf16=(params.kernel == "mm"),
-                interpret=interpret)
-        elif params.kernel in ("ymm", "pkmm"):
-            from ssvio_tpu.ops import lk_pallas_variants
-            pts_out, flag = lk_pallas_variants.lk_level_vmem_pk(
-                img_prev_p, gx_p, gy_p, img_cur_p, pts_prev, pts_guess,
-                frozen0, win=win, iters=params.iters, eps=params.eps,
-                min_eig=params.min_eig, x_mm=(params.kernel == "pkmm"),
-                interpret=interpret)
-        elif params.kernel == "sw":
-            from ssvio_tpu.ops import lk_pallas_variants
-            pts_out, flag = lk_pallas_variants.lk_level_vmem_sw(
-                img_prev_p, gx_p, gy_p, img_cur_p, pts_prev, pts_guess,
-                frozen0, win=win, iters=params.iters, eps=params.eps,
-                min_eig=params.min_eig, interpret=interpret)
-        else:
-            pts_out, flag = lk_pallas.lk_level_vmem(
-                img_prev_p, gx_p, gy_p, img_cur_p, pts_prev, pts_guess,
-                frozen0, win=win, iters=params.iters, eps=params.eps,
-                min_eig=params.min_eig, interpret=interpret)
-        ok = (flag[:, 0] > 0) & sampling.in_bounds(pts_out, h, w, border=1.0) \
-            & sampling.in_bounds(pts_prev, img_prev.shape[0],
-                                 img_prev.shape[1], border=1.0)
-        return pts_out, ok
-
-    LANES = lk_pallas.LANES
-    rup8 = lambda v: -(-v // 8) * 8
-    # patch footprints: +7 rows of slack so 8-aligned row origins still
-    # cover the window; x gets a full second lane tile (128-aligned origin);
-    # >= 32 rows so the kernel's 32-row power-of-2 slab always fits
-    pty = max(rup8(win + 2 + 7), 32)
-    pcy = max(rup8(win + 2 * margin + 2 + 7), 32)
-
-    # pad tiny coarse levels so the patch footprint always fits (padding is
-    # never sampled by ACCEPTED tracks — border gating keeps windows inside
-    # the true image)
-    hp = max(rup8(h), pcy)
-    wp = max(-(-w // 128) * 128, LANES)
-    if (hp, wp) != (h, w):
-        pad = ((0, hp - h), (0, wp - w))
-        img_prev_p = jnp.pad(img_prev, pad)
-        img_cur_p = jnp.pad(img_cur, pad)
-        gx_p = jnp.pad(gx, pad)
-        gy_p = jnp.pad(gy, pad)
-    else:
-        img_prev_p, img_cur_p, gx_p, gy_p = img_prev, img_cur, gx, gy
-
-    def aligned_origin(tl, py):
-        ox = jnp.clip((tl[:, 0] // 128) * 128, 0, wp - LANES)
-        oy = jnp.clip((tl[:, 1] // 8) * 8, 0, hp - py)
-        return jnp.stack([ox, oy], axis=-1)
-
-    tlp = jnp.stack([jnp.floor(pts_prev[:, 0]).astype(jnp.int32) - r,
-                     jnp.floor(pts_prev[:, 1]).astype(jnp.int32) - r], axis=-1)
-    org_T = aligned_origin(tlp, pty)
-    localT = pts_prev - r - org_T.astype(pts_prev.dtype)
-    tlc = jnp.stack([jnp.round(pts_guess[:, 0]).astype(jnp.int32) - r,
-                     jnp.round(pts_guess[:, 1]).astype(jnp.int32) - r - margin],
-                    axis=-1)
-    org_C = aligned_origin(tlc, pcy)
-    org_Cf = org_C.astype(pts_guess.dtype)
-    local0 = pts_guess - r - org_Cf
-    frozen0 = (~valid | ~sampling.in_bounds(pts_guess, h, w, border=r + 1)) \
-        .astype(jnp.int32)[:, None]
-
-    local_out, flag = lk_pallas.lk_level_pallas(
-        img_prev_p, gx_p, gy_p, img_cur_p, org_T, org_C, localT, local0,
-        frozen0, win=win, pty=pty, pcy=pcy, iters=params.iters,
+    pts_out, good = lk_triton.track_level(
+        img_prev, img_cur, gx, gy, pts_prev, pts_guess, valid,
+        window=params.window, margin=params.margin, iters=params.iters,
         eps=params.eps, min_eig=params.min_eig, interpret=interpret)
-    pts_out = org_Cf + r + local_out
-    ok = (flag[:, 0] > 0) & sampling.in_bounds(pts_out, h, w, border=1.0) \
+    ok = good & sampling.in_bounds(pts_out, h, w, border=1.0) \
         & sampling.in_bounds(pts_prev, img_prev.shape[0], img_prev.shape[1],
                              border=1.0)
     return pts_out, ok
@@ -232,10 +117,6 @@ def _track_level(img_prev: jnp.ndarray, img_cur: jnp.ndarray,
     `valid` pre-freezes dead keypoints: invalid slots of the fixed-capacity
     feature array would otherwise burn full iteration loops on stale
     positions (typically ~half the slots in steady state)."""
-    mode = _pallas_mode(params)
-    if mode is not None:
-        return _track_level_pallas(img_prev, img_cur, gx, gy, pts_prev,
-                                   pts_guess, valid, params, interpret=mode)
     win = params.window
     r = win // 2
     margin = params.margin
@@ -304,7 +185,7 @@ def _track_level(img_prev: jnp.ndarray, img_cur: jnp.ndarray,
 def track(pyr_prev: List[jnp.ndarray], pyr_cur: List[jnp.ndarray],
           pts_prev: jnp.ndarray, pts_init: jnp.ndarray,
           valid: jnp.ndarray, params: LKParams = LKParams(),
-          compute_err: bool = True, grads_prev=None
+          compute_err: bool = True, grads_prev=None, _impl: str | None = None
           ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Track keypoints from prev to cur through the pyramid.
 
@@ -316,21 +197,29 @@ def track(pyr_prev: List[jnp.ndarray], pyr_cur: List[jnp.ndarray],
         seed; pass pts_prev for none).
       valid:    [N] input validity mask.
       compute_err: when False, skip the final photometric window resample —
-        it is a vmapped-dynamic-slice gather pass (the cost the Pallas
-        kernel exists to avoid) and only callers that gate on `err` need it
+        it is a vmapped-dynamic-slice gather pass, and only callers that
+        gate on `err` need it
         (the stereo matcher; the temporal tracker uses the FB check
         instead). err is returned as zeros in that case.
       grads_prev: optional ((gx per level), (gy per level)) Sobel gradients
         of pyr_prev, computed once per image and reused across the
         forward/backward/stereo track calls that share a template pyramid
-        (recomputing them inside every call was ~20% of the per-frame
-        device time). None recomputes them here.
+        None recomputes them here.
+      _impl: private. 'xla', 'kernel' or 'interpret' (the kernel in the
+        Pallas interpreter) overrides the platform's choice; for tests and
+        the on-card comparison, never a setting.
 
     Returns (pts_cur [N, 2], ok [N] bool, err [N] mean abs window residual).
     """
     levels = min(params.levels, len(pyr_prev))
     flow = (pts_init - pts_prev) / (2.0 ** (levels - 1))
     pts_lvl = pts_prev / (2.0 ** (levels - 1))
+    impl = _impl or _platform_impl()
+    if impl == "xla":
+        level_fn = _track_level
+    else:
+        level_fn = functools.partial(_track_level_kernel,
+                                     interpret=(impl == "interpret"))
     ok = valid
     for l in range(levels - 1, -1, -1):
         img_p = pyr_prev[l]
@@ -339,9 +228,8 @@ def track(pyr_prev: List[jnp.ndarray], pyr_cur: List[jnp.ndarray],
             gx, gy = grads_prev[0][l], grads_prev[1][l]
         else:
             gx, gy = pyr_ops.sobel_gradients(img_p)
-        pts_cur_lvl, ok_lvl = _track_level(img_p, img_c, gx, gy,
-                                           pts_lvl, pts_lvl + flow, valid,
-                                           params)
+        pts_cur_lvl, ok_lvl = level_fn(img_p, img_c, gx, gy, pts_lvl,
+                                       pts_lvl + flow, valid, params)
         flow = pts_cur_lvl - pts_lvl
         ok = ok & ok_lvl
         if l > 0:

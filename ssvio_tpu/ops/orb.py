@@ -6,7 +6,7 @@ computeOrbDescriptor :46-91, CalcDescriptors :943-991): intensity-centroid
 orientation over a radius-15 circular patch, then a 256-pair steered binary
 test packed into 32 bytes.
 
-Design notes (TPU-first, not a port):
+Design notes (not a port):
 - The reference uses ORB-SLAM's learned `bit_pattern_31_` table
   (reference src/ssvio/orbpattern.cpp). We deliberately do NOT copy that
   table: descriptors here are self-consistent within the engine (matching,
@@ -93,10 +93,8 @@ def _moment_kernel() -> np.ndarray:
 
 def ic_angle_conv(img: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
     """ic_angle via two whole-image moment convolutions + ONE gather per
-    keypoint per moment — the TPU-native form: the per-tap gather version
-    issues ~709 random gathers per keypoint (gathers are the throughput
-    floor of the descriptor ladder, PERF.md r4); a 31x31 conv rides the
-    conv/matmul units instead. Numerically IDENTICAL to ic_angle for
+    keypoint per moment: the per-tap gather version issues ~709 random
+    gathers per keypoint, where a 31x31 conv is one dense pass. Numerically IDENTICAL to ic_angle for
     keypoints whose full patch is in bounds (all integer taps:
     round(xy)+o == round(xy+o)); border keypoints differ (zero-pad vs
     clamp) but descriptor validity already excludes them (border 22 >
@@ -123,8 +121,7 @@ def _circle_rows() -> Tuple[np.ndarray, np.ndarray]:
 
 def ic_angle_integral(img: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
     """ic_angle via row-wise integral images: 4 gathers per patch ROW
-    instead of one per TAP (124 vs ~709 gathers per keypoint — gathers are
-    the descriptor ladder's throughput floor on TPU, PERF.md r4).
+    instead of one per TAP (124 vs ~709 gathers per keypoint).
 
     Exactly the same tap set as ic_angle:
       S(dy)  = sum_{|dx|<=w(dy)} img[cy+dy, cx+dx]   (prefix-sum diff)

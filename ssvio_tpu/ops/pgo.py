@@ -6,10 +6,10 @@ vertices, odometry edges (relative pose to previous KF) + loop edges,
 residual `log(Z^-1 X_i X_j^-1)` (reference include/ssvio/g2otypes.hpp:
 164-199), active/loop/first vertices held fixed, ~20 LM iterations.
 
-TPU-first: edges live in flat arrays (i, j, Z, valid); residuals and
-first-order SE3 Jacobians are one vmapped pass; the Gauss-Newton normal
-system is solved dense (jittered Cholesky on the [6P, 6P] block matrix —
-an MXU solve beats sparse scalar factorizations on TPU at small P) up to
+Edges live in flat arrays (i, j, Z, valid); residuals and first-order SE3
+Jacobians are one vmapped pass; the Gauss-Newton normal system is solved
+dense (jittered Cholesky on the [6P, 6P] block matrix, one batched dense
+solve instead of a sparse scalar factorization at small P) up to
 DENSE_MAX_POSES, and with matrix-free Jacobi-preconditioned CG beyond
 (O(E) memory per matvec; KITTI-02-scale keyframe counts never build H).
 
@@ -139,7 +139,7 @@ def optimize(prob: PGOProblem, iters: int = 20) -> jnp.ndarray:
     Dispatches on problem size (a static shape, so each variant jits
     once): dense Cholesky on the [6P, 6P] normal system up to
     DENSE_MAX_POSES, matrix-free Jacobi-block-preconditioned CG beyond —
-    the TPU analog of the reference's sparse solve over ALL keyframes
+    the fixed-shape analog of the reference's sparse solve over ALL keyframes
     (reference loopclosing.cpp:458-594, LinearSolverEigen)."""
     if prob.poses.shape[0] <= DENSE_MAX_POSES:
         return _optimize_dense(prob, iters=iters)

@@ -1,11 +1,11 @@
-"""Batched RANSAC PnP (3D->2D absolute pose), TPU-native.
+"""Batched RANSAC PnP (3D->2D absolute pose).
 
 Capability parity with the reference's cv::solvePnPRansac usage in loop
 closing (reference src/ssvio/loopclosing.cpp:196-215: 100 iterations,
 reprojection threshold 5.991 px, conf 0.99) followed by pose-only
 refinement (OptimizeCurrentPose, loopclosing.cpp:245-351).
 
-TPU-first: all RANSAC hypotheses run SIMULTANEOUSLY — one vmapped 6-point
+All RANSAC hypotheses run SIMULTANEOUSLY — one vmapped 6-point
 DLT (12x12 eigen-problem per hypothesis) + a dense [hyp, N] reprojection
 inlier count, then the best hypothesis is refined with the batched
 pose-only LM from ops/ba. No data-dependent loop, one jit.
@@ -35,7 +35,7 @@ def _dlt_pose(p_w: jnp.ndarray, xn: jnp.ndarray, w: jnp.ndarray) -> jnp.ndarray:
     p_w [K, 3], xn [K, 2], w [K] weights. Returns T_cw [3, 4].
 
     Hartley-normalizes both point sets first — the minimal 6-point system is
-    numerically marginal in float32 without it (TPU has no f64).
+    numerically marginal in float32 without it (the engine runs float32).
     """
     K = p_w.shape[0]
     wsum = jnp.maximum(jnp.sum(w), 1e-9)

@@ -7,9 +7,8 @@ Two pyramids serve different consumers (mirroring the reference):
   octaves (reference src/ssvio/orbextractor.cpp:993-1027) for scale-covariant
   FAST + descriptors.
 
-TPU-first: blur is two separable 1-D convolutions expressed as
-`lax.conv_general_dilated` (XLA fuses + vectorizes on the VPU); resampling is
-a static bilinear gather with precomputed weights. All shapes derive from the
+Blur is separable and written as statically shifted weighted adds that XLA
+fuses into one elementwise pass; decimation is a reshape plus static slice. All shapes derive from the
 config at trace time, so each level is a fixed-shape array and the whole
 pyramid jits once.
 """
@@ -36,10 +35,9 @@ def blur(img: jnp.ndarray, sigma: float = 2.0, radius: int = 3) -> jnp.ndarray:
     """Separable Gaussian blur of [H, W] (matches the reference's 7x7 sigma=2
     pre-descriptor blur, reference src/ssvio/orbextractor.cpp:732,962).
 
-    Implemented as 2r+1 statically-shifted weighted adds per direction, NOT
-    lax.conv: XLA's TPU lowering of a 1-channel spatial convolution picks a
-    batch-in-sublanes emitter that costs ~3 ms per 1248x384 blur (measured);
-    the shift-add form fuses into one elementwise VPU pass (~30x faster)."""
+    Implemented as 2r+1 statically-shifted weighted adds per direction
+    rather than a 1-channel lax.conv: the shift-add form fuses into one
+    elementwise pass."""
     k = gaussian_kernel1d(sigma, radius)
     h, w = img.shape
     p = jnp.pad(img, ((0, 0), (radius, radius)), mode="edge")
@@ -85,8 +83,7 @@ def build_lk_pyramid(img: jnp.ndarray, levels: int) -> List[jnp.ndarray]:
     for _ in range(1, levels):
         smoothed = blur(cur, sigma=1.0, radius=2)
         # 2x decimation (even rows/cols of the smoothed image) via
-        # reshape+static-slice — a strided slice `[::2, ::2]` lowers to a
-        # fused gather on TPU (~1.2 ms/frame measured); this form is free
+        # reshape+static-slice, which needs no gather
         h, w = smoothed.shape
         cur = smoothed.reshape(h // 2, 2, w // 2, 2)[:, 0, :, 0]
         pyr.append(cur)

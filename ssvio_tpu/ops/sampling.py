@@ -1,8 +1,8 @@
 """Batched image sampling primitives (the gather core of the front end).
 
 Every front-end kernel (LK windows, BRIEF pattern taps, IC-angle patches)
-reduces to "sample the image at N floating-point positions". On TPU this is
-one big flat gather; we precompute flattened indices and let XLA vectorize.
+reduces to "sample the image at N floating-point positions": one flat
+gather over precomputed flattened indices, which XLA vectorizes.
 Out-of-bounds positions clamp to the border (callers gate validity
 separately so clamped taps never influence accepted results).
 """

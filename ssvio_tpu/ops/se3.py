@@ -3,7 +3,7 @@
 Capability parity with the Sophus usage in the reference (vendored
 thirdparty/sophus; used e.g. reference src/ssvio/frontend.cpp:552,
 include/ssvio/g2otypes.hpp:40,175): exp/log maps, compose, inverse, action
-on points. Design is TPU-first: poses are plain `[..., 3, 4]` float arrays
+on points. Poses are plain `[..., 3, 4]` float arrays
 (`[R | t]`), every op broadcasts over leading batch dims, and all series
 expansions use Taylor fallbacks guarded by `jnp.where` so they jit with no
 data-dependent branching.

@@ -5,13 +5,13 @@ Capability parity with the reference's SVD triangulation
 per landmark by SVD, keep the solution only when the quality gate
 sigma3/sigma2 < 1e-2 holds, and (at call sites) require positive depth.
 
-TPU-first: the whole landmark batch is one `jnp.linalg.svd` over [B, 4, 4]
+The whole landmark batch is one `jnp.linalg.svd` over [B, 4, 4]
 normal matrices (A^T A instead of the rectangular A — same right singular
 vectors, fixed shape regardless of view count, and the 4x4 eigen-problem is
 far cheaper than the 2Nx4 SVD).
 
 For the dominant rectified two-view case we also provide the closed-form
-disparity triangulation (speed-of-light path: pure elementwise VPU math).
+disparity triangulation (pure elementwise math).
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def triangulate_stereo_rectified(uv_l: jnp.ndarray, uv_r: jnp.ndarray,
     z = fx * b / disparity. Purely elementwise: the fast path used during
     keyframe creation (reference triangulates the same stereo pair through
     the generic SVD path; the closed form is algebraically identical for a
-    rectified pair and maps better to the VPU).
+    rectified pair and is elementwise).
 
     Returns (p_cam [..., 3], ok [...]).
     """

@@ -1,10 +1,11 @@
 """Distributed sliding-window BA over a device mesh.
 
 The reference has no distributed computing at all (4 pthreads over shared
-memory, SURVEY §2.3); this module is the TPU-native scale-out deliverable
-from BASELINE.json: landmark blocks sharded over a `jax.sharding.Mesh` axis,
-per-shard Hessian/gradient contributions combined with `psum` over ICI
-collectives, the tiny Schur-reduced camera system solved redundantly on
+memory, SURVEY §2.3); this module is the scale-out path: landmark blocks
+sharded over a `jax.sharding.Mesh` axis, per-shard Hessian/gradient
+contributions combined with `psum` (which XLA hands to NCCL; the GPUs of
+one host are joined all to all by NVLink, so the 1-D mesh follows the
+algorithm alone), the tiny Schur-reduced camera system solved redundantly on
 every shard, and landmark back-substitution kept local.
 
 Communication per LM iteration is exactly:
@@ -14,7 +15,7 @@ i.e. O(W^2) floats — independent of the landmark count, so scaling
 efficiency approaches the compute ratio as M grows.
 
 Multi-host: build the mesh from `jax.devices()` after
-`jax.distributed.initialize()`; the same code paths ride DCN across hosts.
+`jax.distributed.initialize()`; the same code paths span hosts.
 """
 
 from __future__ import annotations

@@ -1,13 +1,12 @@
-"""Multi-host (DCN) initialization for the distributed BA / engine path.
+"""Multi-host initialization for the distributed BA / engine path.
 
 The reference has no distributed computing at all (4 pthreads over shared
 memory, SURVEY §2.3); scale-out across HOSTS is this build's own
 deliverable (BASELINE "N>=2 hosts" leg): `jax.distributed.initialize`
 joins the processes into one runtime, `jax.devices()` then spans every
-host's chips, and the same `jax.sharding.Mesh` + shard_map/GSPMD code
-paths that ride ICI within a host ride DCN across hosts — no separate
-communication backend (the role NCCL/MPI would play elsewhere is filled
-by the XLA collectives the mesh inserts).
+host's devices, and the same `jax.sharding.Mesh` + shard_map/GSPMD code
+paths run within a host and across hosts — no separate communication
+backend: XLA inserts the collectives the mesh needs (NCCL on GPUs).
 
 Wiring:
   * programmatic: `multihost.initialize(coordinator, num_processes,
@@ -18,7 +17,7 @@ Wiring:
 
 Tested by tests/test_multihost.py: two OS processes, CPU backend, a
 global 2x<local devices> mesh, landmark-sharded BA via
-parallel.dist_ba — the DCN analog of the virtual-mesh single-process
+parallel.dist_ba — the cross-process analog of the virtual-mesh single-process
 tests (SURVEY §4d).
 """
 
@@ -66,7 +65,7 @@ def initialize(coordinator: Optional[str] = None,
 
 def global_mesh(axis_name: str = "lm"):
     """1-D mesh over ALL devices of the (possibly multi-host) runtime.
-    Within a host the collectives ride ICI; across hosts, DCN."""
+    XLA places the collectives (NCCL on GPUs)."""
     from ssvio_tpu.parallel import dist_ba
     import jax
     return dist_ba.make_mesh(jax.devices(), axis_name)

@@ -3,7 +3,7 @@
 The reference has NO tracing/profiling support (SURVEY §5: its only
 artifacts are progress logs every 100 frames, test_system.cpp:38-39, and
 dead timer variables). This module provides the observability layer the
-TPU build needs: named stage timers (wall clock, with device sync),
+device build needs: named stage timers (wall clock, with device sync),
 monotonic counters, rates (frames/s, BA iterations/s), and a context
 manager around `jax.profiler` for XLA-level traces viewable in
 TensorBoard/Perfetto.
@@ -76,7 +76,7 @@ class StageTimer:
 
 @contextlib.contextmanager
 def xla_trace(log_dir: Optional[str]):
-    """Capture a jax.profiler trace (XLA ops, TPU timelines) into log_dir.
+    """Capture a jax.profiler trace (XLA ops, device timelines) into log_dir.
     No-op when log_dir is falsy, so call sites can stay unconditional."""
     if not log_dir:
         yield

@@ -7,7 +7,7 @@ frusta + landmark cloud (RenderMapFrameAndMapPoint :251-281, DrawFrame
 plot (:291-297), and TUM trajectory export (SaveTrajectoryTUM :362-395 —
 implemented in dataio/tum.py and System.save_trajectory_tum).
 
-TPU-first framing: visualization is NOT device work — the reference burns
+Visualization is NOT device work — the reference burns
 an OpenGL render thread; here the device streams poses/cloud snapshots to
 the host and the viewer is a pure-host consumer. Two modes:
 - `snapshot(...)`: render a matplotlib figure (headless `Agg`) to a PNG —

@@ -90,7 +90,7 @@ def test_chunked_with_loop_closing_smoke(seq):
 
 def test_prefetcher_contract(seq):
     """ChunkPrefetcher enforces its depth bound (each in-flight chunk is
-    pinned in device HBM), rejects empty chunks, and surfaces worker
+    pinned in device memory), rejects empty chunks, and surfaces worker
     exceptions at close() instead of swallowing them."""
     s, poses, L, R = seq
     sys_ = System(s, enable_backend=True, enable_loop_closing=False)

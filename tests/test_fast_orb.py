@@ -297,7 +297,7 @@ def test_multiscale_descriptor_zoom_matching(rng):
 
 
 def test_ic_angle_conv_matches_gather():
-    """Conv-moment orientation (TPU-native path used by the loop
+    """Conv-moment orientation (the whole-image path available to the loop
     descriptor ladder) is numerically identical to the per-tap gather
     version for interior keypoints."""
     import numpy as np

@@ -238,7 +238,7 @@ def test_loop_closes_on_circular_trajectory():
 def test_loop_correction_through_chunked_path():
     """Drive loop corrections through run_chunk (system.py's chunked
     collect path and its _lc_T_ref correction composition, plus mappoint
-    fusion e2e — VERDICT r2 weak #4).
+    fusion e2e).
 
     At this test's 320x128 resolution the circular trajectory accumulates
     several metres of ORGANIC drift per lap — enough to cross the
@@ -296,8 +296,8 @@ def test_loop_correction_through_chunked_path():
 def test_multi_closure_pipelined_five_laps():
     """Loop closing at CLOSURE DENSITY under dispatch-ahead: 5 laps of a
     circular course, ~20+ verified candidates, repeated correction + fusion
-    + PGO. Regression test for the r4 accuracy collapse (BENCH_r04
-    loop_bench: loop_on ATE 86.57 m vs loop_off 0.33 m): the single-closure
+    + PGO. Regression test for an accuracy collapse (loop_on ATE tens of
+    metres against a sub-metre loop_off on the revisit bench): the single-closure
     tests above green-lit a system whose deferred corrections re-applied
     already-corrected drift and whose pose graph was poisoned by
     rejected-verification edges. This is the exact failure regime:
@@ -309,8 +309,8 @@ def test_multi_closure_pipelined_five_laps():
     semantically-equivalent builds (this 320x128 five-lap scene sits on a
     float32 knife edge — per-lap inlier dips — so outcomes vary between
     builds while staying in the few-metre envelope; the tight accuracy
-    contract is the KITTI-resolution loop bench, BENCH_r05: loop_on
-    0.16 m vs loop_off 0.33 m).
+    contract is the KITTI-resolution loop phase of chip_smoke.py, which
+    requires loop_on ATE below loop_off).
       * >= 5 corrections accepted through the pipelined path
       * loop_on keyframe-record ATE stays in the few-metre envelope,
         nowhere near the r4 collapse

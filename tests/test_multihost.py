@@ -1,4 +1,4 @@
-"""Multi-host (DCN) leg of the distributed BA: a REAL 2-process
+"""Multi-host leg of the distributed BA: a REAL 2-process
 jax.distributed run on CPU.
 
 The single-process tests validate the landmark-sharded BA on a virtual
@@ -6,7 +6,7 @@ The single-process tests validate the landmark-sharded BA on a virtual
 runtime via `jax.distributed.initialize` (parallel/multihost.py), build a
 global 8-device mesh (4 virtual CPU devices per process), and run the
 same shard_map BA. The collectives then cross the process boundary — the
-CPU stand-in for DCN (SURVEY §4d: "multi-host logic tested on CPU with
+CPU stand-in for a multi-host run (SURVEY §4d: "multi-host logic tested on CPU with
 jax.distributed").
 """
 

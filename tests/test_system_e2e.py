@@ -141,14 +141,15 @@ def test_detection_budget_caps_new_features():
     from ssvio_tpu import frontend as fe
 
     s = small_settings()
-    front = fe.Frontend(s, s.padded_width, s.padded_height, W, H)
+    div = 2 ** (s.lk_levels + 1)          # System's pyramid padding
+    pw, ph = -(-W // div) * div, -(-H // div) * div
+    front = fe.Frontend(s, pw, ph, W, H)
     world = synthetic.SyntheticWorld(seed=9)
     pose = synthetic.straight_trajectory(1, speed=0.0)[0]
     L, _ = synthetic.render_stereo_sequence(world, pose[None], FX, FY, CX,
                                             CY, BASELINE, W, H)
     img = jnp.asarray(np.pad(L[0].astype(np.float32),
-                             ((0, s.padded_height - H),
-                              (0, s.padded_width - W)), mode="edge"))
+                             ((0, ph - H), (0, pw - W)), mode="edge"))
     empty = fe.empty_feat_state(s.max_features)
     _, new_full = front._detect_merge(img, empty)
     _, new_10 = front._detect_merge(img, empty, budget=10)
